@@ -16,8 +16,8 @@ import os
 
 import numpy as np
 
-from realtimedepthdiffusion_tpu.io import depth_to_u8, imread_rgb, imwrite, load_annotation
-from realtimedepthdiffusion_tpu.models import ChebyshevCascade
+from realtimedepthdiffusion.io import depth_to_u8, imread_rgb, imwrite, load_annotation
+from realtimedepthdiffusion.models import ChebyshevCascade
 
 
 def main(argv=None):

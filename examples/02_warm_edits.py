@@ -5,7 +5,7 @@ the annotation planes, the brush, and the warm multigrid state. After the
 first full solve, each additional scribble re-solves WARM — and with
 `incremental_iterations > 0` a small stroke takes the localized windowed
 path (a deep solve in a window around the stroke plus a coarse far-field
-correction; ~0.2 ms on TPU vs ~4.4 ms for the full schedule, PERF.md).
+correction instead of the full schedule).
 """
 
 # Allow running from a source checkout without `pip install -e .`:
@@ -18,9 +18,9 @@ import time
 
 import numpy as np
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.io import imread_rgb
-from realtimedepthdiffusion_tpu.live.session import DepthSession
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.io import imread_rgb
+from realtimedepthdiffusion.live.session import DepthSession
 
 
 def main(argv=None):
@@ -54,7 +54,7 @@ def main(argv=None):
           f"depth range [{depth.min():.0f}, {depth.max():.0f}]")
 
     # Small strokes -> warm re-solves (incremental path when enabled). The
-    # FIRST one compiles the incremental program (seconds on a remote TPU);
+    # FIRST one compiles the incremental program;
     # report the second, which is what every later edit in a session costs.
     kind = "incremental" if args.incremental else "full warm"
     sess.set_color_key(2)

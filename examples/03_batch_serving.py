@@ -14,9 +14,9 @@ _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)
 
 import argparse
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.core import effects
-from realtimedepthdiffusion_tpu.serve import discover_pairs, solve_pairs
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.core import effects
+from realtimedepthdiffusion.serve import discover_pairs, solve_pairs
 
 
 def main(argv=None):

@@ -38,10 +38,10 @@ if _os.environ.get("JAX_PLATFORMS"):
             file=_sys.stderr,
         )
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.core import effects
-from realtimedepthdiffusion_tpu.parallel.mesh import make_mesh
-from realtimedepthdiffusion_tpu.parallel.sharded import batched_step
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.core import effects
+from realtimedepthdiffusion.parallel.mesh import make_mesh
+from realtimedepthdiffusion.parallel.sharded import batched_step
 
 
 def main(argv=None):

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from realtimedepthdiffusion_tpu.core import annotation
-from realtimedepthdiffusion_tpu.oracle import numpy_ref as oracle
+from realtimedepthdiffusion.core import annotation
+from realtimedepthdiffusion.oracle import numpy_ref as oracle
 
 
 def test_annotation_pyr_down_matches_oracle(rng):
@@ -83,7 +83,7 @@ def test_paint_square_brush(rng):
 
 
 def test_annotation_png_roundtrip(tmp_path):
-    from realtimedepthdiffusion_tpu.io import load_annotation, save_annotation
+    from realtimedepthdiffusion.io import load_annotation, save_annotation
 
     rng = np.random.default_rng(3)
     mask = rng.random((31, 27)) < 0.3

@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.io import imread_gray, imwrite, load_annotation
-from realtimedepthdiffusion_tpu.live.cli import main, parse_args
-from realtimedepthdiffusion_tpu.live.session import DepthSession
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.io import imread_gray, imwrite, load_annotation
+from realtimedepthdiffusion.live.cli import main, parse_args
+from realtimedepthdiffusion.live.session import DepthSession
 from tests.conftest import synthetic_pair
 
 
@@ -114,7 +114,7 @@ def test_cli_depth16_writes_16bit_map(tmp_path):
 
     # The GUI 's' key defers to the session's save_depth16 preference
     # (set by the --depth16 flag), so both surfaces agree.
-    from realtimedepthdiffusion_tpu.live.session import DepthSession
+    from realtimedepthdiffusion.live.session import DepthSession
     s = DepthSession(rgb, DiffusionConfig(max_iterations=20, backend="xla"))
     s.paint(35, 35)
     s.solve()
@@ -140,7 +140,7 @@ def test_annotation_size_mismatch_raises(tmp_path):
     """Clean error propagation (SURVEY.md §5 failure handling): a wrong-size
     annotation raises instead of silently corrupting state."""
     import pytest as _pytest
-    from realtimedepthdiffusion_tpu.io import save_annotation
+    from realtimedepthdiffusion.io import save_annotation
 
     rgb, _, _ = synthetic_pair(70, 90, 8)
     s = DepthSession(rgb, DiffusionConfig(max_iterations=20))
@@ -176,8 +176,8 @@ def test_cli_effect_names():
 def test_gui_key_state_machine():
     """The GUI key contract as a displayless state machine (the reference's
     src/main.cpp:180-334 bindings), including the idle-frame/live semantics."""
-    from realtimedepthdiffusion_tpu.core import effects as fx
-    from realtimedepthdiffusion_tpu.live.gui import handle_key
+    from realtimedepthdiffusion.core import effects as fx
+    from realtimedepthdiffusion.live.gui import handle_key
 
     rgb, _, _ = synthetic_pair(64, 64, 3)
     s = DepthSession(rgb, DiffusionConfig(max_iterations=20))
@@ -226,7 +226,7 @@ def test_gui_key_state_machine():
 def test_cli_trace_and_verbose(tmp_path):
     """--trace wraps the solve in a jax.profiler trace (SURVEY §5
     observability); --verbose enables debug logging."""
-    from realtimedepthdiffusion_tpu.io import imwrite, save_annotation
+    from realtimedepthdiffusion.io import imwrite, save_annotation
 
     rgb, mask, value = synthetic_pair(64, 64, 14)
     img = str(tmp_path / "i.png")
@@ -244,7 +244,7 @@ def test_cli_solver_flags_reach_config():
     """Round-2 verdict gap: the incremental live path, early exit and the
     gray-chain convention must be reachable from argv (the reference exposes
     its whole behavior surface through its CLI, src/main.cpp:81-90)."""
-    from realtimedepthdiffusion_tpu.live.cli import make_config
+    from realtimedepthdiffusion.live.cli import make_config
 
     a = parse_args([
         "-i", "x.jpg", "--incremental", "48", "--early-exit",
@@ -312,7 +312,7 @@ def test_cli_solver_flags_reach_config():
 def test_cli_profile_flag():
     """--profile fast = red_black + RMS early exit @1e-3 + the incremental
     live path; faithful = the defaults; explicit flags override."""
-    from realtimedepthdiffusion_tpu.live.cli import make_config
+    from realtimedepthdiffusion.live.cli import make_config
 
     cfg = make_config(parse_args(["-i", "x.jpg", "--profile", "fast"]))
     assert cfg.solver == "red_black" and cfg.early_exit
@@ -347,7 +347,7 @@ def test_gui_live_incremental_hits_windowed_path(monkeypatch):
     must take the windowed incremental re-solve (pipe.solve_incremental), and
     idle live frames (no dirty rect) must not (they reuse the device
     annotation and run the cheap warm full re-solve)."""
-    from realtimedepthdiffusion_tpu.live.gui import handle_key
+    from realtimedepthdiffusion.live.gui import handle_key
 
     rgb, _, _ = synthetic_pair(96, 96, 3)
     cfg = DiffusionConfig(max_iterations=20, incremental_iterations=8,
@@ -381,7 +381,7 @@ def test_cli_defocus_quality_flags():
     alone implies approx; parse-time validation."""
     import pytest
 
-    from realtimedepthdiffusion_tpu.live.cli import make_config, parse_args
+    from realtimedepthdiffusion.live.cli import make_config, parse_args
 
     cfg = make_config(parse_args(["-i", "x.jpg", "--defocus-quality", "approx"]))
     assert cfg.pallas_defocus_quality == "approx"
@@ -420,7 +420,7 @@ def test_serve_defocus_quality_flags():
 
     import pytest
 
-    from realtimedepthdiffusion_tpu import serve as serve_mod
+    from realtimedepthdiffusion import serve as serve_mod
 
     def parse(args):
         # Reuse main()'s parser by capturing the resolved config.

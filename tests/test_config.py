@@ -1,7 +1,7 @@
 """Config contract tests: pyramid geometry + iteration schedule formulas
 (reference: src/main.cpp:95,103,263)."""
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig, SCRIBBLE_DEPTH_VALUES
+from realtimedepthdiffusion.config import DiffusionConfig, SCRIBBLE_DEPTH_VALUES
 
 CFG = DiffusionConfig()
 
@@ -54,7 +54,7 @@ def test_config_validation_at_construction():
     honor the tolerance the reference ignores, src/main.cpp:264)."""
     import pytest
 
-    from realtimedepthdiffusion_tpu.config import DiffusionConfig
+    from realtimedepthdiffusion.config import DiffusionConfig
 
     with pytest.raises(ValueError, match="residual_metric"):
         DiffusionConfig(residual_metric="rsm")
@@ -70,7 +70,7 @@ def test_defocus_quality_validation_at_construction():
     and a zero exact band are rejected loudly."""
     import pytest
 
-    from realtimedepthdiffusion_tpu.config import DiffusionConfig
+    from realtimedepthdiffusion.config import DiffusionConfig
 
     with pytest.raises(ValueError, match="pallas_defocus_quality"):
         DiffusionConfig(pallas_defocus_quality="fast")

@@ -9,10 +9,9 @@ produce a depth map that satisfies the framework's invariants:
 - the fused effect renders to a (H, W, 3) uint8 frame.
 
 The per-feature suites verify each path's NUMERICS against the oracle;
-this sweep targets the ROUTING GATES between them (VMEM-budget gates,
-resident-vs-strip rerouting, rb megakernel gates, defocus thin-block
-fallbacks) — historically where bugs hid, and combinations no focused test
-enumerates.
+this sweep targets the ROUTING GATES between them (the route table, the
+kernel's fit rule, the early-exit and solver gates) — historically where
+bugs hid, and combinations no focused test enumerates.
 """
 
 import itertools
@@ -22,9 +21,9 @@ import numpy as np
 import pytest
 
 from conftest import synthetic_pair
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.core import effects as fx
-from realtimedepthdiffusion_tpu.pipeline import DepthPipeline
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.core import effects as fx
+from realtimedepthdiffusion.pipeline import DepthPipeline
 
 SOLVERS = ["jacobi_chebyshev", "jacobi", "red_black"]
 MULTIGRIDS = ["cascadic", "vcycle"]
@@ -55,18 +54,26 @@ COMBOS = [
 
 
 @pytest.mark.parametrize("combo", COMBOS, ids=_combo_id)
-def test_solve_and_effect_invariants(combo):
+def test_solve_and_effect_invariants(combo, monkeypatch):
     (solver, mg, backend), (h, w), effect = combo
+    # The kernel covers the fixed-count solver only: its interpreter combos
+    # run fixed-count so the kernel actually runs; the XLA combos fuzz the
+    # early-exit chunked while_loop paths (every solver honors it).
+    kernel = backend == "pallas_interpret"
     cfg = DiffusionConfig(
         solver=solver,
         multigrid=mg,
         backend=backend,
         max_iterations=40,
-        # Every solver honors the early exit (round 5); exercising it across
-        # the whole combo grid fuzzes the chunked while_loop paths too.
-        early_exit=True,
+        early_exit=not kernel,
         tolerance=1e-3,
     )
+    from realtimedepthdiffusion.ops import coarse_sweep
+
+    calls = []
+    real = coarse_sweep.solve_level
+    monkeypatch.setattr(coarse_sweep, "solve_level",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
     rgb, mask, value = synthetic_pair(h, w, seed=h * w)
     pipe = DepthPipeline(h, w, cfg)
     rgb_d, gpyr = pipe.prepare_image(rgb)
@@ -81,3 +88,4 @@ def test_solve_and_effect_invariants(combo):
     assert depth.min() >= -40 and depth.max() <= 300  # bounded overshoot
     assert np.array_equal(depth[mask], value[mask].astype(np.float32))
     assert art.shape == (h, w, 3) and art.dtype == np.uint8
+    assert bool(calls) is (kernel and solver == "jacobi_chebyshev")

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.core import effects
-from realtimedepthdiffusion_tpu.oracle import numpy_ref as oracle
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.core import effects
+from realtimedepthdiffusion.oracle import numpy_ref as oracle
 
 CFG = DiffusionConfig()
 
@@ -83,8 +83,8 @@ def test_apply_effect_dispatch(rng):
         )
 
 
-# --- Defocus quality='approx' (the 4K latency lever; config.py fields,
-#     ops/pallas_defocus.py stride march). The approx output is EXACTLY the
+# --- Defocus quality='approx' (the 4K latency lever; config.py fields).
+#     The approx output is EXACTLY the
 #     defocus of the SNAPPED half field, so correctness splits into (a) snap
 #     semantics and (b) per-pixel equality with exact wherever the snap is
 #     the identity — out[p] depends only on half[p]. ---
@@ -144,7 +144,7 @@ def test_defocus_approx_pointwise_vs_exact(rng):
     """Pixels whose half-width is already a candidate are BIT-IDENTICAL to
     the exact path (the approximation touches only snapped pixels), and the
     snapped pixels' error is a bounded window-size perturbation."""
-    from realtimedepthdiffusion_tpu.ops.pallas_defocus import defocus_half_widths
+    from realtimedepthdiffusion.core.effects import defocus_half_widths
 
     h, w = 140, 200
     cfg_a = _approx_cfg(defocus_aperture=0.5, pallas_defocus_exact_upto=8)
@@ -159,8 +159,8 @@ def test_defocus_approx_pointwise_vs_exact(rng):
     rgb[40:70, 60:120] = (255, 0, 0)
     rgb[90:120, 20:180:7] = (0, 0, 255)
     depth = (rng.random((h, w), dtype=np.float32) * 255).astype(np.float32)
-    exact = np.asarray(effects.defocus_xla(jnp.asarray(rgb), jnp.asarray(depth), cfg_e)).astype(int)
-    approx = np.asarray(effects.defocus_xla(jnp.asarray(rgb), jnp.asarray(depth), cfg_a)).astype(int)
+    exact = np.asarray(effects.defocus(jnp.asarray(rgb), jnp.asarray(depth), cfg_e)).astype(int)
+    approx = np.asarray(effects.defocus(jnp.asarray(rgb), jnp.asarray(depth), cfg_a)).astype(int)
 
     half_e = np.asarray(defocus_half_widths(jnp.asarray(depth), h, w, cfg_e))
     half_a = np.asarray(defocus_half_widths(jnp.asarray(depth), h, w, cfg_a))
@@ -189,8 +189,8 @@ def test_defocus_auto_quality_resolution(rng):
     k = cfg_auto.defocus_kernel_size(h, w)
     assert k // 2 <= cfg_auto.pallas_defocus_auto_max_half
     assert effects.resolved_defocus_quality(cfg_auto, k // 2) == "exact"
-    got = np.asarray(effects.defocus_xla(rgb, depth, cfg_auto))
-    want = np.asarray(effects.defocus_xla(
+    got = np.asarray(effects.defocus(rgb, depth, cfg_auto))
+    want = np.asarray(effects.defocus(
         rgb, depth, DiffusionConfig(pallas_defocus_quality="exact")
     ))
     assert np.array_equal(got, want)
@@ -198,8 +198,8 @@ def test_defocus_auto_quality_resolution(rng):
     # Above the threshold (forced low): auto == approx, bitwise.
     cfg_low = DiffusionConfig(pallas_defocus_auto_max_half=0)
     assert effects.resolved_defocus_quality(cfg_low, k // 2) == "approx"
-    got2 = np.asarray(effects.defocus_xla(rgb, depth, cfg_low))
-    want2 = np.asarray(effects.defocus_xla(
+    got2 = np.asarray(effects.defocus(rgb, depth, cfg_low))
+    want2 = np.asarray(effects.defocus(
         rgb, depth, DiffusionConfig(pallas_defocus_quality="approx")
     ))
     assert np.array_equal(got2, want2)
@@ -228,14 +228,14 @@ def test_defocus_auto_switch_is_loud(caplog):
 
     effects._AUTO_WARNED.clear()
     cfg = DiffusionConfig()
-    with caplog.at_level(logging.WARNING, logger="realtimedepthdiffusion_tpu"):
+    with caplog.at_level(logging.WARNING, logger="realtimedepthdiffusion"):
         assert effects.resolved_defocus_quality(cfg, 55) == "approx"
     assert any(
         "approx" in r.getMessage() and "auto" in r.getMessage()
         for r in caplog.records
     ), caplog.records
     caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="realtimedepthdiffusion_tpu"):
+    with caplog.at_level(logging.WARNING, logger="realtimedepthdiffusion"):
         effects.resolved_defocus_quality(cfg, 55)  # same regime: silent
     assert not caplog.records
     effects._AUTO_WARNED.clear()

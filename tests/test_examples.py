@@ -12,7 +12,7 @@ import sys
 import numpy as np
 import pytest
 
-from realtimedepthdiffusion_tpu.io import imwrite
+from realtimedepthdiffusion.io import imwrite
 
 _EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 

@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.oracle import faithful
-from realtimedepthdiffusion_tpu.oracle import numpy_ref as oracle
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.oracle import faithful
+from realtimedepthdiffusion.oracle import numpy_ref as oracle
 
 cv2 = pytest.importorskip("cv2")
 
@@ -33,7 +33,7 @@ def test_pyr_down_floor_is_cropped_opencv():
 
 def test_pyr_down_ceil_is_bitexact_opencv():
     """The faithful gray chain's pyrDown (oracle + JAX) == cv2.pyrDown."""
-    from realtimedepthdiffusion_tpu.core import pyramid as jpyr
+    from realtimedepthdiffusion.core import pyramid as jpyr
 
     for h, w in [(64, 64), (65, 63), (101, 77), (455, 455)]:
         g = RNG.integers(0, 256, (h, w), dtype=np.uint8)
@@ -61,7 +61,7 @@ def test_pyr_up_matches_opencv_all_parities():
 
 
 def test_jax_pyr_up_matches_opencv():
-    from realtimedepthdiffusion_tpu.core.pyramid import pyr_up as jpyr_up
+    from realtimedepthdiffusion.core.pyramid import pyr_up as jpyr_up
 
     for (h, w), (oh, ow) in [((32, 32), (65, 65)), ((51, 33), (102, 67))]:
         f = (RNG.random((h, w)).astype(np.float32)) * 255
@@ -107,7 +107,7 @@ def test_pipeline_parity_vs_faithful_oracle(name):
     the full-schedule 12-pair table is PARITY.md."""
     import jax.numpy as jnp
 
-    from realtimedepthdiffusion_tpu.pipeline import DepthPipeline
+    from realtimedepthdiffusion.pipeline import DepthPipeline
 
     bgr, mask, value = _dataset(name)
     cfg = DiffusionConfig(max_iterations=120)

@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.core import effects
-from realtimedepthdiffusion_tpu.oracle import numpy_ref as oracle
-from realtimedepthdiffusion_tpu.pipeline import DepthPipeline
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.core import effects
+from realtimedepthdiffusion.oracle import numpy_ref as oracle
+from realtimedepthdiffusion.pipeline import DepthPipeline
 
 
 @pytest.fixture(scope="module")
@@ -56,8 +56,7 @@ def test_effects_on_solved_depth(solved):
     "name",
     [
         # One pair stays in the fast set as the breadth anchor; the heavier
-        # two ride in the slow set (the 12-pair fingerprint gate in
-        # tests_tpu/ covers full-dataset breadth on hardware).
+        # two ride in the slow set.
         "StreetArt",
         pytest.param("Arara", marks=pytest.mark.slow),
         pytest.param("Flower", marks=pytest.mark.slow),
@@ -72,7 +71,7 @@ def test_more_dataset_pairs_light(name):
     ann = f"/root/reference/dataset/annotations/{name}.png"
     if not (os.path.exists(img) and os.path.exists(ann)):
         pytest.skip("reference dataset not mounted")
-    from realtimedepthdiffusion_tpu.io import imread_rgb, load_annotation
+    from realtimedepthdiffusion.io import imread_rgb, load_annotation
 
     rgb = imread_rgb(img)
     mask, value = load_annotation(ann)

@@ -1,12 +1,13 @@
 """Driver-contract smoke tests for __graft_entry__ (small-mesh variants; the
 driver itself runs entry() single-chip and dryrun_multichip(N))."""
 
+import os
 import sys
 
 import jax
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import __graft_entry__ as ge  # noqa: E402
 

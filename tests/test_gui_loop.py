@@ -18,8 +18,8 @@ import sys
 import numpy as np
 import pytest
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.live.session import DepthSession
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.live.session import DepthSession
 from tests.conftest import synthetic_pair
 
 
@@ -84,8 +84,8 @@ def _drag(x0, y0, x1, y1, fake):
 
 
 def _run(session, script, live=False, monkeypatch=None):
-    from realtimedepthdiffusion_tpu.live import gui
-    from realtimedepthdiffusion_tpu.native import runtime as rt
+    from realtimedepthdiffusion.live import gui
+    from realtimedepthdiffusion.native import runtime as rt
 
     fake = FakeCv2(script)
     queues = []

@@ -8,8 +8,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.pipeline import DepthPipeline
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.pipeline import DepthPipeline
 from tests.conftest import synthetic_pair
 
 
@@ -31,7 +31,7 @@ def test_incremental_parity_dataset():
     ann = "/root/reference/dataset/annotations/Dog.png"
     if not (os.path.exists(img) and os.path.exists(ann)):
         pytest.skip("reference dataset not mounted")
-    from realtimedepthdiffusion_tpu.io import imread_rgb, load_annotation
+    from realtimedepthdiffusion.io import imread_rgb, load_annotation
 
     rgb = imread_rgb(img)
     m0, v0 = load_annotation(ann)
@@ -94,7 +94,7 @@ def test_session_dirty_window_upload():
     """A small paint stroke takes the local path: the device annotation
     planes are updated through the window upload (not a full re-transfer)
     and end up exactly equal to the host planes; the solve is pinned."""
-    from realtimedepthdiffusion_tpu.live.session import DepthSession
+    from realtimedepthdiffusion.live.session import DepthSession
 
     rgb, _, _ = synthetic_pair(128, 160, 5)
     cfg = DiffusionConfig(max_iterations=40, incremental_iterations=16,
@@ -122,7 +122,7 @@ def test_session_window_covers_rect_spanning_exactly_window():
     """Regression: a dirty rect spanning EXACTLY the window size used to get
     a center-derived window missing its last row/column, silently dropping
     painted pixels from the device upload (and clearing the dirty flag)."""
-    from realtimedepthdiffusion_tpu.live.session import DepthSession
+    from realtimedepthdiffusion.live.session import DepthSession
 
     rgb, _, _ = synthetic_pair(128, 160, 5)
     cfg = DiffusionConfig(max_iterations=40, incremental_iterations=16,
@@ -145,8 +145,8 @@ def test_session_window_covers_rect_spanning_exactly_window():
 def test_incremental_full_fallback_on_large_edit():
     """An edit larger than the window (annotation load) falls back to the
     full path and still lands the right device state."""
-    from realtimedepthdiffusion_tpu.live.session import DepthSession
-    from realtimedepthdiffusion_tpu.io import save_annotation
+    from realtimedepthdiffusion.live.session import DepthSession
+    from realtimedepthdiffusion.io import save_annotation
 
     rgb, m0, v0 = synthetic_pair(128, 160, 6)
     cfg = DiffusionConfig(max_iterations=40, incremental_iterations=16,
@@ -171,8 +171,8 @@ def test_session_multi_rect_incremental():
     paint() keeps them as separate dirty rects, solve() window-solves each
     sequentially through the same compiled program, and the result tracks
     a full warm re-solve within the ledger band."""
-    from realtimedepthdiffusion_tpu.live.session import DepthSession
-    from realtimedepthdiffusion_tpu.pipeline import DepthPipeline
+    from realtimedepthdiffusion.live.session import DepthSession
+    from realtimedepthdiffusion.pipeline import DepthPipeline
 
     rgb, _, _ = synthetic_pair(192, 224, 5)
     cfg = DiffusionConfig(max_iterations=60, incremental_iterations=16,
@@ -222,7 +222,7 @@ def test_session_multi_rect_incremental():
 def test_session_rect_overflow_merges_nearest():
     """More simultaneous rects than cfg.incremental_max_rects: the nearest
     pairs merge, the list stays bounded, and solve still succeeds."""
-    from realtimedepthdiffusion_tpu.live.session import DepthSession
+    from realtimedepthdiffusion.live.session import DepthSession
 
     rgb, _, _ = synthetic_pair(192, 224, 6)
     cfg = DiffusionConfig(max_iterations=40, incremental_iterations=16,

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from realtimedepthdiffusion_tpu.io import depth_to_u8, imread_rgb, imwrite
-from realtimedepthdiffusion_tpu.models import (
+from realtimedepthdiffusion.io import depth_to_u8, imread_rgb, imwrite
+from realtimedepthdiffusion.models import (
     ChebyshevCascade,
     JacobiCascade,
     RedBlackCascade,
@@ -61,7 +61,7 @@ def test_model_render_reuses_prepared_cache(monkeypatch):
     gray-pyramid work: render() reuses the prepared-image cache that
     solve() maintains (round-4 verdict weakness #6 — render used to re-run
     prepare_image per call)."""
-    from realtimedepthdiffusion_tpu import pipeline as pl_mod
+    from realtimedepthdiffusion import pipeline as pl_mod
 
     calls = []
     real = pl_mod.DepthPipeline.prepare_image

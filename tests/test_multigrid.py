@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.core import multigrid, solver, weights
-from realtimedepthdiffusion_tpu.oracle import numpy_ref as oracle
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.core import multigrid, solver, weights
+from realtimedepthdiffusion.oracle import numpy_ref as oracle
 from tests.conftest import synthetic_pair
 
 

@@ -6,10 +6,10 @@ import threading
 import numpy as np
 import pytest
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.core.solver import chebyshev_omegas
-from realtimedepthdiffusion_tpu.native.runtime import Arena, EventQueue, NativeRuntime
-from realtimedepthdiffusion_tpu.oracle import numpy_ref as oracle
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.core.solver import chebyshev_omegas
+from realtimedepthdiffusion.native.runtime import Arena, EventQueue, NativeRuntime
+from realtimedepthdiffusion.oracle import numpy_ref as oracle
 
 CFG = DiffusionConfig()
 
@@ -85,7 +85,7 @@ def test_arena_alloc_alignment_and_reuse(rt):
 
 def test_session_buffers_are_arena_backed():
     from tests.conftest import synthetic_pair
-    from realtimedepthdiffusion_tpu.live.session import DepthSession
+    from realtimedepthdiffusion.live.session import DepthSession
 
     rgb, _, _ = synthetic_pair(32, 48, 5)
     s = DepthSession(rgb, DiffusionConfig(max_iterations=5))

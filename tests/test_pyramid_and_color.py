@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from realtimedepthdiffusion_tpu.core import pyramid
-from realtimedepthdiffusion_tpu.core.color import rgb_to_gray
-from realtimedepthdiffusion_tpu.oracle import numpy_ref as oracle
+from realtimedepthdiffusion.core import pyramid
+from realtimedepthdiffusion.core.color import rgb_to_gray
+from realtimedepthdiffusion.oracle import numpy_ref as oracle
 
 
 def test_rgb_to_gray_matches_oracle(rng):

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from realtimedepthdiffusion_tpu.config import DiffusionConfig
-from realtimedepthdiffusion_tpu.core import solver, weights
-from realtimedepthdiffusion_tpu.oracle import numpy_ref as oracle
+from realtimedepthdiffusion.config import DiffusionConfig
+from realtimedepthdiffusion.core import solver, weights
+from realtimedepthdiffusion.oracle import numpy_ref as oracle
 
 CFG = DiffusionConfig()
 
@@ -230,9 +230,9 @@ def test_rb_beats_jacobi_quality_on_real_pair():
     (tools/rb_vs_jacobi.py, PERF.md round-3)."""
     import dataclasses
 
-    from realtimedepthdiffusion_tpu.core import multigrid
-    from realtimedepthdiffusion_tpu.core.color import rgb_to_gray
-    from realtimedepthdiffusion_tpu.io import imread_rgb, load_annotation
+    from realtimedepthdiffusion.core import multigrid
+    from realtimedepthdiffusion.core.color import rgb_to_gray
+    from realtimedepthdiffusion.io import imread_rgb, load_annotation
 
     rgb = imread_rgb("/root/reference/dataset/images/Dog.jpg")
     mask, value = load_annotation(
@@ -298,7 +298,7 @@ def test_unknown_solver_and_backend_rejected(rng):
     """C20 error-checking: a typo'd solver or backend name must raise a
     ValueError naming the valid choices, not a bare KeyError (solver) or a
     silent fallthrough (backend), at the first solve_level call."""
-    from realtimedepthdiffusion_tpu.ops import dispatch
+    from realtimedepthdiffusion.ops import dispatch
 
     gray, mask, val, depth = _case(rng, 16, 24)
     args = (jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(gray), 1, 1, 4)
